@@ -1,99 +1,60 @@
-"""Roofline accounting shared by bench.py and benchmarks/step_profile.py.
+"""Roofline accounting for bench.py.
 
 XLA's cost analysis reports (flops, bytes accessed) for a compiled
-program, but Pallas kernels are opaque to that counter — their table /
-stream traffic is reconstructed here from the kernel statics.  The
-"light" time ``max(bytes / HBM_peak, flops / MXU_peak)`` is the
-bound-setting floor on this chip; utilization = light / measured.
-
-v5e per-chip peaks (public spec): 197 bf16 TFLOP/s MXU, 819 GB/s HBM.
+program.  The "light" time ``max(bytes / HBM peak, flops / tensor peak)``
+is the floor the card's published peaks allow; utilization = light /
+measured.  The peaks live in one table keyed by ``device_kind``; a device
+that is not in it is an error, never a default.
 """
 
 from __future__ import annotations
 
-PEAK_BW_GBS = 819.0
-PEAK_TFLOPS = 197.0
+# NVIDIA H100 SXM data sheet: dense rates (no sparsity), at the full 700 W
+# power limit.  A card set below it cannot hold these under load, so every
+# share is reported beside the card's power limit.
+_H100_SXM = {
+    "hbm_gbs": 3350.0,
+    "bf16_tflops": 989.0,
+    "tf32_tflops": 495.0,
+    "fp32_tflops": 67.0,
+    "int8_tops": 1979.0,
+    "source": "NVIDIA H100 SXM data sheet (dense, 700 W)",
+}
+
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+}
+
+
+def peaks_for(device_kind: str) -> dict:
+    """Published peaks of ``device_kind`` (jax.devices()[0].device_kind)."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}") from None
 
 
 def xla_cost(jitfn, args):
     """(flops, bytes accessed) of the compiled program, from XLA."""
-    try:
-        c = jitfn.lower(*args).compile().cost_analysis()
-        if isinstance(c, (list, tuple)):
-            c = c[0]
-        return float(c.get("flops", 0.0)), float(c.get("bytes accessed", 0.0))
-    except Exception:
-        return 0.0, 0.0
+    c = jitfn.lower(*args).compile().cost_analysis()
+    if isinstance(c, (list, tuple)):
+        c = c[0]
+    return float(c.get("flops", 0.0)), float(c.get("bytes accessed", 0.0))
 
 
-def pallas_traffic_components(env, state):
-    """Per-step traffic XLA's counter cannot see, split by kernel:
-    ((fill_bytes, fill_flops), (paint_bytes, paint_flops)) — the fill
-    kernel's re-streamed pixel tables + one-hot dot MACs, and the active
-    painter kernel's VMEM-resident tables / outputs.  Single source of
-    truth for both bench.py's aggregate and step_profile.py's stages."""
-    from img_env_tpu.ops import pallas_fill
-
-    st = env.statics
-    ps = st.polar
-    n_rob = int(state.robots.pose.shape[0])
-
-    fw = int(ps.fill_window)
-    bm_k, bn_k, _ = pallas_fill._block_dims(ps, float(st.resolution))
-    nf = int(ps.n_fill_slots)
-    wins = ((nf + fw * pallas_fill.WIN_PER_STEP - 1)
-            // (fw * pallas_fill.WIN_PER_STEP)) * pallas_fill.WIN_PER_STEP
-    map_h, map_w = state.obs_map.shape
-    fill_bytes = (n_rob * wins * fw * 8        # pix tables re-stream
-                  + n_rob * wins * fw * 4      # out
-                  + map_h * map_w * 2)         # packed map, once
-    fill_flops = n_rob * wins * 2.0 * bm_k * bn_k * fw  # one-hot dots
-
-    paint_bytes = paint_flops = 0.0
-    if getattr(env, "paint_ks", None) is not None:
-        from img_env_tpu.ops.pallas_paint import NR as PAINT_NR
-
-        ks_p = env.paint_ks
-        tbl_bytes = sum(cl.sstep.nbytes for cl in ks_p.classes)
-        chunks = (n_rob + PAINT_NR - 1) // PAINT_NR
-        paint_bytes = (chunks * tbl_bytes
-                       + n_rob * ks_p.n_slots * 4
-                       + chunks * ks_p.r_pad * PAINT_NR * 8)
-        ent = sum(cl.sstep.shape[0] * cl.w for cl in ks_p.classes) * 128
-        paint_flops = n_rob * ent * (2.0 * PAINT_NR + 6.0)
-    elif getattr(env, "paint_kst", None) is not None:
-        from img_env_tpu.ops.pallas_paint_t import G8, NRT
-
-        ks_t = env.paint_kst
-        n_pad_t = (n_rob + NRT - 1) // NRT * NRT
-        nch_t = n_pad_t // NRT
-        tbl_bytes = sum(cl.ta.nbytes + cl.tb.nbytes for cl in ks_t.classes)
-        rows = sum(cl.ta.shape[0] for cl in ks_t.classes)
-        paint_bytes = (nch_t * tbl_bytes
-                       + rows * G8 * n_pad_t * 4
-                       + nch_t * ks_t.r_pad * NRT * 8)
-        ent = sum(cl.ta.shape[0] * G8 * cl.w for cl in ks_t.classes)
-        paint_flops = n_pad_t * ent * 9.0
-
-    return ((float(fill_bytes), float(fill_flops)),
-            (float(paint_bytes), float(paint_flops)))
-
-
-def pallas_extra_traffic(env, state):
-    """(total_extra_bytes, total_extra_flops) — aggregate of the kernel
-    components above (bench.py's headline roofline field)."""
-    (fb, ff), (pb, pf) = pallas_traffic_components(env, state)
-    return fb + pb, ff + pf
-
-
-def roofline_row(measured_ms, flops, bts):
-    """Dict with the light time and utilization at the measured time."""
-    light_bw_ms = bts / PEAK_BW_GBS / 1e6
-    light_mxu_ms = flops / PEAK_TFLOPS / 1e9
-    light_ms = max(light_bw_ms, light_mxu_ms)
+def roofline_row(measured_ms, flops, bts, device_kind: str):
+    """Light time and utilization at the measured time.  Flops are held to
+    the bf16 tensor-core peak: the step's matmuls (raycast incidence) are
+    bf16, everything else is elementwise and bandwidth-bound."""
+    pk = peaks_for(device_kind)
+    light_bw_ms = bts / pk["hbm_gbs"] / 1e6
+    light_fl_ms = flops / pk["bf16_tflops"] / 1e9
+    light_ms = max(light_bw_ms, light_fl_ms)
     return {
         "light_ms": light_ms,
-        "bound": "BW" if light_bw_ms >= light_mxu_ms else "MXU",
+        "bound": "HBM" if light_bw_ms >= light_fl_ms else "bf16",
         "util_pct": 100.0 * light_ms / measured_ms if measured_ms else 0.0,
         "achieved_gbs": bts / measured_ms / 1e6 if measured_ms else 0.0,
         "achieved_tfs": flops / measured_ms / 1e9 if measured_ms else 0.0,

@@ -1,15 +1,25 @@
-"""Scene-batched env + PPO training throughput (honest timings).
+"""Scene-batched env + PPO training throughput on one GPU.
 
 The reference scales by launching one ROS node per scene; here S scenes
 step as one XLA program (parallel/batched_env.py).  Reports aggregate
 robot-steps/s for the env and env-steps/s inside the full PPO update.
 """
-import dataclasses
-import os, sys
+import os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import jax, jax.numpy as jnp, numpy as np
+import jax, jax.numpy as jnp
 
-from benchmarks.timing import fetch_ms, rtt_ms
+
+def timed_ms(fn, args_of, name, iters=10):
+    """ms per call of jitted ``fn`` over ``iters`` calls with varying
+    inputs, after one compile call; waits with block_until_ready."""
+    jax.block_until_ready(fn(*args_of(0)))
+    t0 = time.perf_counter()
+    for i in range(iters):
+        out = fn(*args_of(i + 1))
+    jax.block_until_ready(out)
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    print(f"{name}: {ms:.3f} ms")
+    return ms
 
 
 def build_cfg(robots: int, peds: int):
@@ -40,15 +50,19 @@ def build_cfg(robots: int, peds: int):
 
 
 def main():
+    from benchmarks.device import require_gpu
     from img_env_tpu.parallel.batched_env import BatchedNavEnv
+    from img_env_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
+    require_gpu()
     S, N, M = 16, 8, 4
     cfg = build_cfg(N, M)
     env = BatchedNavEnv(cfg)
     keys = jax.random.split(jax.random.PRNGKey(0), S)
     states, obs = env.reset(keys)
     jax.block_until_ready(obs.sensor_maps)
-    print(f"rtt floor: {rtt_ms():.1f} ms | {S} scenes x {N} robots x {M} peds, fast sensors")
+    print(f"{S} scenes x {N} robots x {M} peds, fast sensors")
 
     @jax.jit
     def step_sum(states, actions):
@@ -56,8 +70,8 @@ def main():
         return o2.sensor_maps.sum() + r.sum()
 
     acts = jnp.zeros((S, N, 3))
-    ms = fetch_ms(step_sum, lambda i: (states, acts.at[:, :, 0].add(0.001 * i)),
-                  name=f"batched env step")
+    ms = timed_ms(step_sum, lambda i: (states, acts.at[:, :, 0].add(0.001 * i)),
+                  name="batched env step")
     if ms > 0:
         print(f"  -> {S * N / ms * 1e3:.0f} robot-steps/s aggregate")
 
@@ -76,7 +90,7 @@ def main():
         ts2, s2, o2, metrics = train_step(ts, states, obs, key)
         return metrics["loss"] + metrics["reward_mean"]
 
-    ms = fetch_ms(upd_sum, lambda i: (ts, states, obs, jax.random.PRNGKey(i)),
+    ms = timed_ms(upd_sum, lambda i: (ts, states, obs, jax.random.PRNGKey(i)),
                   name=f"PPO update (T={T} rollout + GAE + grad)")
     if ms > 0:
         print(f"  -> {S * N * T / ms * 1e3:.0f} env-steps/s inside training")

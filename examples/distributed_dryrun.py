@@ -1,9 +1,9 @@
 """Two-process distributed dryrun: the multi-host path, exercised for real.
 
 Spawns N worker processes on this machine (CPU backend, 2 virtual devices
-each), each joining one ``jax.distributed`` job — the same code path a TPU
-pod slice uses, with the gRPC coordination service standing in for the real
-fleet.  Every worker:
+each), each joining one ``jax.distributed`` job — the same code path a
+multi-host GPU job uses, with the gRPC coordination service standing in for
+the real fleet.  Every worker:
 
   1. ``initialize(coordinator, N, pid)`` and checks process_count,
   2. builds the GLOBAL [scene, model] mesh over all processes' devices

@@ -33,8 +33,9 @@ $PY examples/train_ppo.py img_env_tpu/configs/baseline_10obs_5ped.yaml \
 
 # polish stages: anneal exploration explicitly (a restored checkpoint
 # carries its own sigma; the entropy bonus would otherwise hold it up).
-# Measured on one v5e chip: stage 3 evals 0.84 arrive / 0.10 collisions,
-# stage 4 0.88 / 0.06, stage 5 0.88 / 0.04 (50-episode bank).
+# Evaluated outcomes (docs/artifacts/baseline_curriculum): stage 3 0.84
+# arrive / 0.10 collisions, stage 4 0.88 / 0.06, stage 5 0.88 / 0.04
+# (50-episode bank).
 $PY examples/train_ppo.py img_env_tpu/configs/baseline_10obs_5ped.yaml \
     --scenes "$S" --updates "${U4:-3000}" --unroll 16 --lr 5e-5 \
     --reward-scale 0.02 --ent-coef 0.002 --force-sigma -1.6 \

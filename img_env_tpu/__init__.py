@@ -1,6 +1,6 @@
-"""img_env_tpu — TPU-native crowd-navigation simulation + MPC engine.
+"""img_env_tpu — accelerator-native crowd-navigation simulation + MPC engine.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
+A from-scratch JAX/XLA re-architecture of the capabilities of
 DRL-Navigation/img_env: batched multi-robot 2D navigation among pedestrian
 crowds (ORCA / Social Force / emotional-ORCA / trajectory replay), grid-map
 sensing (egocentric sensor maps, laser raycast, pedestrian maps), paper-exact

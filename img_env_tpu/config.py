@@ -4,7 +4,7 @@ The loader accepts the reference project's yaml files unchanged (same field
 names as envs/cfg/test.yaml; schema mirrored from envs/env/yaml_env.py:133-181
 and envs/utils/reset_helper.py), so existing experiment configs port directly.
 
-On top of the reference schema we add TPU-engine fields (all optional, with
+On top of the reference schema we add engine fields (all optional, with
 defaults chosen to match reference behavior):
 
   * ``num_scenes``      — batched independent scenes per device (replaces the
@@ -22,8 +22,6 @@ import math
 import os
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
-
-import yaml
 
 _DEF_MAP_DIR = os.path.join(os.path.dirname(__file__), "maps")
 
@@ -258,19 +256,12 @@ class EnvConfig:
     # --- wrapper stack (reference names, applied innermost-first) ------------
     wrapper: Tuple[str, ...] = ()
 
-    # --- TPU-engine extensions ----------------------------------------------
+    # --- engine extensions --------------------------------------------------
     num_scenes: int = 1               # batched scenes per program instance
     sensor_mode: str = "parity"       # 'parity' | 'fast' | 'reference'
-    fill_mode: str = "auto"           # FOV-fill backend: 'auto' (Pallas
-                                      #   matmul kernel on TPU, XLA gather on
-                                      #   CPU) | 'gather' | 'pallas'
     fast_sensor_scale: int = 3        # 'fast': view grid coarsened 3x (9x
                                       #   fewer gathers; lasers quantized to
                                       #   scale*view_resolution)
-    paint_mode: str = "auto"          # exact-painter kernel: 'auto'
-                                      #   (transposed robots-in-lanes kernel,
-                                      #   ops/pallas_paint_t.py) | 'block'
-                                      #   (gen-1 64-slot-block kernel) | 'xla'
     max_obs_segments: int = 32        # ORCA obstacle segments per agent
                                       #   (kd-tree SPLITTING can ~double the
                                       #   per-agent segment count; 32 keeps
@@ -341,8 +332,8 @@ class EnvConfig:
             "discrete_action", "use_laser", "range_total",
             "view_angle_begin", "view_angle_end", "view_min_dist",
             "view_max_dist", "beep_r", "ped_ca_p", "relation_ped_robo",
-            "target_min_dist", "num_scenes", "sensor_mode", "fill_mode",
-            "paint_mode", "fast_sensor_scale", "max_obs_segments",
+            "target_min_dist", "num_scenes", "sensor_mode",
+            "fast_sensor_scale", "max_obs_segments",
             "reset_trials",
             "reset_redraws", "map_dir",
         ]
@@ -402,12 +393,12 @@ class EnvConfig:
 
     @staticmethod
     def from_yaml(path: str) -> "EnvConfig":
-        with open(path, "r", encoding="utf-8") as f:
-            raw = yaml.load(f.read(), Loader=yaml.FullLoader)
-        return EnvConfig.from_dict(raw)
+        return EnvConfig.from_dict(read_yaml(path))
 
 
 def read_yaml(path: str) -> dict:
     """Reference-compatible raw yaml reader (envs/__init__.py:9-18)."""
+    import yaml   # only config files need it; the simulator does not
+
     with open(path, "r", encoding="utf-8") as f:
         return yaml.load(f.read(), Loader=yaml.FullLoader)

@@ -1,7 +1,7 @@
 """Numeric conventions shared with the reference simulator.
 
 Every constant here mirrors a convention of DRL-Navigation/img_env that the
-TPU engine must preserve for semantic parity (see SURVEY.md §8).  Citations
+engine must preserve for semantic parity (see SURVEY.md §8).  Citations
 are `file:line` into /root/reference.
 """
 

@@ -14,9 +14,14 @@ Conventions follow the reference simulator (tf-based, z-up planar):
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from img_env_tpu.constants import VIEW_YAW
+
+# f32 rotations feed cell rounding (raster, collision codes): full f32, never
+# the reduced-precision (TF32 / bf16-pass) matmul modes
+_EXACT = jax.lax.Precision.HIGHEST
 
 
 def rot2d(theta):
@@ -33,14 +38,14 @@ def apply_se2(pose, pts):
     ``pose[..., :2]`` broadcasts against the leading dims of ``pts``.
     """
     r = rot2d(pose[..., 2])
-    rotated = jnp.einsum("...ij,...pj->...pi", r, pts)
+    rotated = jnp.einsum("...ij,...pj->...pi", r, pts, precision=_EXACT)
     return rotated + pose[..., None, :2]
 
 
 def apply_rot(theta, pts):
     """Rotate points by ``theta`` (no translation)."""
     r = rot2d(theta)
-    return jnp.einsum("...ij,...pj->...pi", r, pts)
+    return jnp.einsum("...ij,...pj->...pi", r, pts, precision=_EXACT)
 
 
 def inv_se2(pose):
@@ -54,7 +59,7 @@ def world_to_base(pose, pts_world):
     """Map world points into the frame of ``pose``."""
     d = pts_world - pose[..., None, :2]
     r = rot2d(-pose[..., 2])
-    return jnp.einsum("...ij,...pj->...pi", r, d)
+    return jnp.einsum("...ij,...pj->...pi", r, d, precision=_EXACT)
 
 
 def wrap_angle(a):

@@ -112,9 +112,17 @@ def _social_force(pos, vel, valid):
     ivec = SFM_LAMBDA * vel_diff + diff_dir
     ilen = jnp.linalg.norm(ivec, axis=-1)
     idir = ivec / jnp.maximum(ilen, 1e-30)[..., None]
-    # angleTo: signed angle from idir to diff_dir
+    # angleTo: signed angle from idir to diff_dir.  The cross term is
+    # idir x diff_dir = lambda (vel_diff x diff_dir) / ilen (diff_dir x
+    # diff_dir = 0): exactly 0 when the two velocities are equal (every ped
+    # at rest after a reset).  The literal product difference leaves a
+    # rounding residual there whose sign — fused multiply-adds on a GPU
+    # round it differently — would pick the direction of a full-size
+    # sideways force.
     dot = jnp.clip(jnp.sum(idir * diff_dir, -1), -1.0, 1.0)
-    crs = idir[..., 0] * diff_dir[..., 1] - idir[..., 1] * diff_dir[..., 0]
+    crs = SFM_LAMBDA * (vel_diff[..., 0] * diff_dir[..., 1]
+                        - vel_diff[..., 1] * diff_dir[..., 0]) / jnp.maximum(
+                            ilen, 1e-30)
     theta = jnp.arctan2(crs, dot)
     theta_sign = jnp.where(theta == 0, 0.0, jnp.sign(theta))
     b = SFM_GAMMA * ilen

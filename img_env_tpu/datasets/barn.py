@@ -138,10 +138,9 @@ def generate_worlds(out_dir: str, n: int = 3, seed0: int = 0,
 def world_cfg_dict(world_png: str, n_beams: int = 90) -> dict:
     """EnvConfig dict for one BARN world: single robot crossing bottom->top
     (the reference's Jackal task), map at the BARN 0.15 m pitch."""
-    from PIL import Image
+    from img_env_tpu.env.maps import read_png_gray
 
-    with Image.open(world_png) as im:
-        w_cells, h_cells = im.size
+    h_cells, w_cells = read_png_gray(world_png).shape
     x_max = h_cells * CELL_M
     y_max = w_cells * CELL_M
     # start/goal sit mid-clear-band, 0.6 m off the border wall — outside

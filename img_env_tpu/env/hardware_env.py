@@ -13,7 +13,7 @@ on the robot side) and this class reproduces the reference's processing:
     (``_ped_state``, real_env.py:267-316, including the -x+3 image flip)
   * goal-in-base-frame state vector (``get_state_goal``, real_env.py:338-345)
 
-Everything is numpy: hardware rates (10-30 Hz) don't need the TPU, and the
+Everything is numpy: hardware rates (10-30 Hz) don't need an accelerator, and the
 outputs match the simulator's observation layout so one policy drives both.
 """
 

@@ -140,8 +140,8 @@ def build_statics(cfg: EnvConfig) -> EnvStatics:
 
     n, m, o = cfg.robot.total, cfg.ped_sim.total, cfg.object.total
     if n >= 4096:
-        # the id-packed int16 sensor map carries robot ids <= 4095
-        # (ops/raster.py bit layout; ops/pallas_fill.py self-exclusion)
+        # the id-packed sensor map carries robot ids <= 4095
+        # (ops/raster.py bit layout)
         raise ValueError("at most 4095 robots per scene (id-packed map)")
 
     rob_clouds = []
@@ -314,127 +314,41 @@ class NavEnv:
         # to skip the ~5 s host-side table build (utils/statics_cache.py)
         from img_env_tpu.utils import statics_cache as _scache
 
-        self._cache_key = (
-            _scache.cache_key(cfg, cfg.resolve_map_path())
-            if _scache.cache_dir() else None)
-        self.statics = (_scache.load("st-" + self._cache_key)
-                        if self._cache_key else None)
+        cache_key = (_scache.cache_key(cfg, cfg.resolve_map_path())
+                     if _scache.cache_dir() else None)
+        self.statics = (_scache.load("st-" + cache_key)
+                        if cache_key else None)
         if self.statics is None:
             self.statics = build_statics(cfg)
-            if self._cache_key:
-                _scache.save("st-" + self._cache_key, self.statics)
+            if cache_key:
+                _scache.save("st-" + cache_key, self.statics)
         self.scene_type = cfg.ped_sim.type if cfg.ped_sim.total > 0 else "none"
         # Device tables are jit ARGUMENTS: the polar incidence matrices are
         # hundreds of MB and must not be baked into the HLO as constants.
-        # They travel on the accelerated paths only (CPU keeps the
-        # jnp.asarray fallbacks — also the x64 parity reference — unless
-        # fill_mode='pallas' forces the kernel path there).
-        keep_tables = (cfg.sensor_mode != "reference"
-                       and cfg.fill_mode != "gather"
-                       and (cfg.fill_mode == "pallas"
-                            or jax.default_backend() != "cpu"))
+        # Every platform runs the same table-driven sensor path, so the CPU
+        # tests cover the code the GPU runs ('reference' mode has no tables).
         self._groups = tuple(self.statics.sensor_groups)
-        if not self._groups:
-            # statics from an older cache: synthesize the single group
-            st_ = self.statics
-            self._groups = (SensorGroup(
-                idx=np.arange(cfg.robot.total, dtype=np.int32),
-                sensor=tuple(cfg.robot.sensor_cfgs[0]) if cfg.robot.total
-                else (0.0, 0.0),
-                view_statics=st_.view_statics, polar=st_.polar,
-                painter=st_.painter,
-                own_view_cells=st_.own_view_cells,
-                own_view_valid=st_.own_view_valid,
-                own_slots=st_.own_slots, own_slots_ok=st_.own_slots_ok),)
         self.hetero = len(self._groups) > 1
 
-        def group_runtime(g: SensorGroup, gi: int):
-            """(device tables, paint statics, gen-2/gen-1 kernel statics)
-            for one sensor group.  Painter backend notes: the Pallas
-            kernel replaces the XLA dense decode on TPU (tables stay
-            VMEM-resident per robot-chunk); CPU keeps the XLA path (also
-            the x64 parity reference); paint_mode='xla' keeps the device
-            tables but decodes with painter.paint_sorted.  Painting only
-            the resize subgrid was MEASURED SLOWER (compacted slots make
-            block beam-windows balloon) — keep the full-view paint."""
-            tables = None
-            if keep_tables:
-                tables = polar_mod.make_tables(g.polar)
-                # per-robot static self-stamp mask: the runtime stamp is
-                # one elementwise select instead of a scalar-rate scatter
-                tables = tables._replace(
-                    own_mask=jax.device_put(
-                        jnp.asarray(polar_mod.own_mask_sorted(
-                            g.polar, g.own_slots, g.own_slots_ok))),
-                    painter=(painter_mod.make_painter_tables(g.painter)
-                             if g.painter is not None else None))
-            paint_pst = paint_kst = paint_ks = None
-            if (g.painter is not None and keep_tables
-                    and cfg.paint_mode != "xla"):
-                paint_pst = g.painter
-                if cfg.paint_mode in ("auto", "t"):
-                    # gen-2 transposed kernel: robots in lanes, 8-slot
-                    # group windows (3.3x fewer window entries)
-                    from img_env_tpu.ops import pallas_paint_t
-                    from img_env_tpu.utils import statics_cache as _scache
+        def group_tables(g: SensorGroup):
+            tables = polar_mod.make_tables(g.polar)
+            # per-robot static self-stamp mask: the runtime stamp is one
+            # elementwise select instead of a scatter
+            return tables._replace(
+                own_mask=jax.device_put(
+                    jnp.asarray(polar_mod.own_mask_sorted(
+                        g.polar, g.own_slots, g.own_slots_ok))),
+                painter=(painter_mod.make_painter_tables(g.painter)
+                         if g.painter is not None else None))
 
-                    ck = (f"kst{gi if gi else ''}-" + self._cache_key
-                          if self._cache_key else None)
-                    paint_kst = _scache.load(ck) if ck else None
-                    if paint_kst is None:
-                        paint_kst = pallas_paint_t.PaintTStatics.build(
-                            paint_pst)
-                        if ck:
-                            _scache.save(ck, paint_kst)
-                    tables = tables._replace(
-                        painter=tables.painter._replace(
-                            kernel_t=pallas_paint_t.make_paint_t_tables(
-                                paint_kst)))
-                else:   # 'block': gen-1 64-slot-block kernel
-                    from img_env_tpu.ops import pallas_paint
-
-                    paint_ks = pallas_paint.PaintKernelStatics.build(
-                        paint_pst)
-                    tables = tables._replace(
-                        painter=tables.painter._replace(
-                            kernel=pallas_paint.make_paint_tables(paint_ks)))
-            return tables, paint_pst, paint_kst, paint_ks
-
-        runtimes = [group_runtime(g, gi)
-                    for gi, g in enumerate(self._groups)]
-        self._group_tables = tuple(r[0] for r in runtimes)
-        self._group_paint_pst = tuple(r[1] for r in runtimes)
-        self._group_paint_kst = tuple(r[2] for r in runtimes)
-        self._group_paint_ks = tuple(r[3] for r in runtimes)
-        # legacy single-group attributes (= group 0; external consumers:
-        # bench selfcheck, benchmarks/step_profile)
-        tables0, self.paint_pst, self.paint_kst, self.paint_ks = runtimes[0]
-        # the jitted entry points take sensor_tables as ONE argument: the
-        # group-0 tables when homogeneous, the tuple of group tables when
-        # heterogeneous (_sensor_pass dispatches on the type)
-        if not keep_tables:
+        if cfg.sensor_mode == "reference":
             self.sensor_tables = None
         else:
-            self.sensor_tables = (self._group_tables if self.hetero
-                                  else tables0)
-        # FOV-fill backend: the Pallas matmul kernel replaces XLA's scalar
-        # gather (~570 ms -> MXU work at 200 robots); 'auto' keeps the plain
-        # gather on CPU where the x64 parity tests run.
-        self.fill_pallas = (
-            cfg.fill_mode == "pallas"
-            or (cfg.fill_mode == "auto" and jax.default_backend() != "cpu")
-        )
-        # robot-footprint raster backend: the block one-hot kernel needs
-        # every footprint to fit its [40, 128] block
-        from img_env_tpu.ops.pallas_raster import max_footprint_span
-
-        span = max_footprint_span(self.statics.robot_points,
-                                  self.statics.resolution)
-        self.raster_pallas = bool(
-            self.fill_pallas and cfg.robot.total > 0 and span <= 30)
-        # ped-map backend: the sequential-overwrite kernel needs no sort
-        # and no [N,M,H,W] cover decode (ops/pallas_pedmap.py)
-        self.pedmap_pallas = bool(self.fill_pallas and cfg.ped_sim.total > 0)
+            # the jitted entry points take sensor_tables as ONE argument:
+            # the group-0 tables when homogeneous, the tuple of group
+            # tables when heterogeneous (_sensor_pass dispatches on it)
+            tables = tuple(group_tables(g) for g in self._groups)
+            self.sensor_tables = tables if self.hetero else tables[0]
 
         self._reset = jax.jit(self.reset_fn) if jit else self.reset_fn
         self._step = jax.jit(self.step_fn) if jit else self.step_fn
@@ -818,11 +732,9 @@ class NavEnv:
         [B, 3] scene-major flat (B = S * robots-per-scene).  Returns
         (sensor_maps [B, h, w], hits [B, R], angular [B, 72]).
 
-        Keeping all S scenes' robots in one flat axis is the multi-scene
-        throughput fix: the polar incidence / resize matmuls stream their
-        static tables ONCE for all scenes (vmap re-streamed them per
-        scene), and the painter kernel pads to 128 robot lanes once
-        instead of per scene.
+        Keeping all S scenes' robots in one flat axis lets the polar
+        incidence / resize matmuls stream their static tables ONCE for all
+        scenes (vmap re-streamed them per scene).
         """
         if self.hetero:
             return self._sensor_pass_grouped(packed, poses, sensor_tables)
@@ -835,11 +747,7 @@ class NavEnv:
         multi = packed.ndim == 3
         nps = b // packed.shape[0] if multi else b
 
-        if self.fill_pallas:
-            from img_env_tpu.ops.pallas_fill import fill_sorted_pallas
-
-            occ = fill_sorted_pallas(ps, packed, st.resolution, poses, t=t)
-        elif multi:
+        if multi:
             occ = jax.vmap(
                 lambda pm, p: polar_mod.fill_sorted(
                     ps, pm, st.resolution, p, t=t)
@@ -856,21 +764,7 @@ class NavEnv:
             # order — bit-identical to the sequential trace
             pt = t.painter if t is not None else None
             s_hit, s_tail = painter_mod.hit_steps(st.painter, *aux, t=pt)
-            if self.paint_kst is not None:
-                from img_env_tpu.ops import pallas_paint_t
-
-                vals = pallas_paint_t.paint_sorted_pallas_t(
-                    self.paint_kst, s_hit, s_tail,
-                    tables=pt.kernel_t if pt is not None else None)
-            elif self.paint_ks is not None:
-                from img_env_tpu.ops import pallas_paint
-
-                vals = pallas_paint.paint_sorted_pallas(
-                    self.paint_pst, self.paint_ks, s_hit, s_tail,
-                    tables=pt.kernel if pt is not None else None)
-            else:
-                vals = painter_mod.paint_sorted(
-                    st.painter, s_hit, s_tail, t=pt)
+            vals = painter_mod.paint_sorted(st.painter, s_hit, s_tail, t=pt)
         else:
             hits = jnp.full((b, vp.range_total), 6.0)
             angular = jnp.full((b, 72), vp.max_dist)
@@ -920,9 +814,7 @@ class NavEnv:
 
         outs = []
         order = []
-        for g, t, kst, pst_k, ks in zip(
-                self._groups, tabs, self._group_paint_kst,
-                self._group_paint_pst, self._group_paint_ks):
+        for g, t in zip(self._groups, tabs):
             ps = g.polar
             k = len(g.idx)
             flat_idx = (np.arange(s)[:, None] * n
@@ -931,12 +823,7 @@ class NavEnv:
             poses_g = poses[jnp.asarray(flat_idx)]
             rids = jnp.tile(jnp.asarray(g.idx + 1, jnp.int32), (s,))
 
-            if self.fill_pallas:
-                from img_env_tpu.ops.pallas_fill import fill_sorted_pallas
-
-                occ = fill_sorted_pallas(
-                    ps, packed, st.resolution, poses_g, t=t, rids=rids)
-            elif multi:
+            if multi:
                 occ = jax.vmap(
                     lambda pm, p: polar_mod.fill_sorted(
                         ps, pm, st.resolution, p, t=t,
@@ -952,21 +839,7 @@ class NavEnv:
                     ps, occ, t=t, return_aux=True)
                 pt = t.painter if t is not None else None
                 s_hit, s_tail = painter_mod.hit_steps(g.painter, *aux, t=pt)
-                if kst is not None:
-                    from img_env_tpu.ops import pallas_paint_t
-
-                    vals = pallas_paint_t.paint_sorted_pallas_t(
-                        kst, s_hit, s_tail,
-                        tables=pt.kernel_t if pt is not None else None)
-                elif ks is not None:
-                    from img_env_tpu.ops import pallas_paint
-
-                    vals = pallas_paint.paint_sorted_pallas(
-                        pst_k, ks, s_hit, s_tail,
-                        tables=pt.kernel if pt is not None else None)
-                else:
-                    vals = painter_mod.paint_sorted(
-                        g.painter, s_hit, s_tail, t=pt)
+                vals = painter_mod.paint_sorted(g.painter, s_hit, s_tail, t=pt)
             else:
                 hits_g = jnp.full((s * k, vp.range_total), 6.0)
                 ang_g = jnp.full((s * k, 72), vp.max_dist)
@@ -1032,7 +905,6 @@ class NavEnv:
                 jnp.asarray(st.robot_mask),
                 ped_pose3, body_pts, body_mask,
                 left_pts, left_mask, right_pts, right_mask,
-                robots_pallas=self.raster_pallas,
             )
             coll = raster.collision_codes(layers, prev_coll, arrive)
             return layers.packed, coll
@@ -1057,7 +929,6 @@ class NavEnv:
                     jnp.asarray(st.ped_r), jnp.asarray(st.robot_radius),
                     int(cfg.max_ped), int(cfg.ped_vec_dim),
                     int(cfg.ped_image_size[0]), float(cfg.ped_image_r),
-                    map_backend="pallas" if self.pedmap_pallas else "xla",
                 )
             )(state.robots.pose, state.peds.pos, state.peds.vel)
         else:
@@ -1118,7 +989,6 @@ class NavEnv:
             state.robots.pose, jnp.asarray(st.robot_points), jnp.asarray(st.robot_mask),
             ped_pose3, body_pts, body_mask,
             left_pts, left_mask, right_pts, right_mask,
-            robots_pallas=self.raster_pallas,
         )
         collision = raster.collision_codes(
             layers, state.robots.collision, state.robots.arrive
@@ -1163,7 +1033,6 @@ class NavEnv:
                 jnp.asarray(st.ped_r), jnp.asarray(st.robot_radius),
                 int(cfg.max_ped), int(cfg.ped_vec_dim),
                 int(cfg.ped_image_size[0]), float(cfg.ped_image_r),
-                map_backend="pallas" if self.pedmap_pallas else "xla",
             )
         else:
             ped_vec = jnp.zeros((n, 1 + cfg.ped_vec_dim * cfg.max_ped))

@@ -1,4 +1,4 @@
-"""Observation assembly — the TPU equivalent of ``get_states`` +
+"""Observation assembly — the on-device equivalent of ``get_states`` +
 ``ImageEnv._get_states`` (img_env.cpp:547-587, yaml_env.py:446-481).
 
 Everything is computed on-device per robot; the reference's per-robot Python
@@ -6,8 +6,6 @@ loops become vmapped tensor ops.
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -55,7 +53,6 @@ def ped_vectors_and_map(
     ped_vec_dim: int,
     image_size: int,
     ped_image_r: float,
-    map_backend: str = "xla",
 ):
     """Sorted 7-dim ped vectors, 3-channel ped maps, nearest-ped clearances.
 
@@ -63,12 +60,6 @@ def ped_vectors_and_map(
     covers ±3 m at 6/image_size resolution with channels (occupancy, vx, vy);
     later (farther) peds overwrite earlier pixels; ped_min_dist is the nearest
     ped's distance minus (ped_r + robot_r).
-
-    map_backend='pallas' draws the map with the sequential-overwrite TPU
-    kernel (ops/pallas_pedmap.py) and sorts only the top ``max_ped`` peds
-    for the vector (lax.top_k ties break toward lower indices exactly like
-    the stable argsort) — the full [N, M] argsort plus the [N, M, H, W]
-    cover decode dominated crowd-scale observation builds.
     """
     n = robot_pose.shape[0]
     m = ped_pos.shape[0]
@@ -77,9 +68,7 @@ def ped_vectors_and_map(
     px, py, vx, vy = peds_in_base(robot_pose, ped_pos, ped_vel)
     range_sq = px * px + py * py
     k = min(m, max_ped)
-    if map_backend == "pallas" and k > 0:
-        _, order = jax.lax.top_k(-range_sq, k)             # [N,k] nearest
-    elif m > 0:
+    if m > 0:
         order = jnp.argsort(range_sq, axis=1)              # [N,M] ascending
     else:
         order = jnp.zeros((n, 0), jnp.int32)
@@ -109,15 +98,7 @@ def ped_vectors_and_map(
     else:
         ped_min = jnp.full((n,), jnp.inf, px.dtype)
 
-    if map_backend == "pallas":
-        from img_env_tpu.ops.pallas_pedmap import ped_map_pallas
-
-        ped_map = ped_map_pallas(px, py, vx, vy, res=res,
-                                 ped_image_r=ped_image_r,
-                                 image_size=image_size)
-        return vec, ped_map, ped_min
-
-    # ---- ped map [N,3,H,W] (XLA path; needs the FULL sorted order) ----
+    # ---- ped map [N,3,H,W] (needs the FULL sorted order) ----
     px, py, vx, vy = pxs, pys, vxs, vys
     hs = image_size
     jj = (jnp.arange(hs, dtype=px.dtype) + 0.5) * res      # pixel centers

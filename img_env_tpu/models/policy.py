@@ -7,7 +7,7 @@ The reference repo is the *environment* for two papers (README.md:159-186):
   * Yao et al. 2021 (IROS-21): crowd-aware navigation adding the 3-channel
     ``ped_map`` (occupancy, vx, vy) and per-pedestrian 7-vectors.
 
-``CrowdNavPolicy`` is the TPU-first actor-critic that consumes exactly the
+``CrowdNavPolicy`` is the actor-critic that consumes exactly the
 observation layout our env emits (core/state.py Observation + the
 StateBatchWrapper stacking):
 
@@ -18,9 +18,8 @@ StateBatchWrapper stacking):
                                  (SARL-style crowd encoder, cf.
                                  envs/utils/sarl_helper.py:6-36)
 
-Design notes (TPU):
-  * all feature dims are multiples of 8 (f32 sublane) and the fusion trunk is
-    256/128-wide so the MXU tiles cleanly;
+Design notes:
+  * feature dims are multiples of 8 and the fusion trunk is 256/128-wide;
   * convolutions run in NHWC with channel counts >=32;
   * everything is bf16-friendly — pass ``dtype=jnp.bfloat16`` for activations
     while params stay f32.

@@ -127,8 +127,7 @@ def local_edt_patch(wc: WorldCost, pose_xy, patch_size: int, pool: int = 1,
     MPPI rollout positions stay within ``v_max * H * dt`` of the start, so a
     patch whose half-width covers that reach contains every cell the solver
     will ever look up — the patch read is one vectorized ``dynamic_slice``
-    instead of K*H scalar gathers per robot (scalar gathers ran the whole
-    solve at ~3.4 ms/solve-batch on v5e; see benchmarks/README.md ledger).
+    instead of K*H scalar gathers per robot.
 
     ``pool`` > 1 min-pools the window by pool x pool: the lookup then
     reports the block minimum, a CONSERVATIVE clearance (never larger than
@@ -167,10 +166,10 @@ def static_distance_patch(wc: WorldCost, patch, corner, xy, pool: int = 1):
     """``static_distance`` with the map lookup served from a local patch.
 
     The nearest-cell EDT read becomes two one-hot contractions (row select
-    on the MXU, column select as an elementwise reduce).  With ``pool`` == 1
-    the selected values match the gather up to the MXU's bf16 operand pass
-    (<= 2^-8 relative — immaterial for a cost heuristic); with ``pool`` > 1
-    they are the conservative block minima from ``local_edt_patch``.
+    as a matmul, column select as an elementwise reduce).  The row select
+    runs at full f32 precision, so with ``pool`` == 1 the selected values
+    equal the gather exactly; with ``pool`` > 1 they are the conservative
+    block minima from ``local_edt_patch``.
     Out-of-map points return 0.0 exactly like ``static_distance``.
     """
     h, w = wc.edt.shape
@@ -179,7 +178,8 @@ def static_distance_patch(wc: WorldCost, patch, corner, xy, pool: int = 1):
     li = jnp.clip((cells[..., 0] - corner[0]) // pool, 0, ps_h - 1)
     lj = jnp.clip((cells[..., 1] - corner[1]) // pool, 0, ps_w - 1)
     row1h = (li[..., None] == jnp.arange(ps_h)).astype(patch.dtype)
-    t1 = jnp.einsum("...i,ij->...j", row1h, patch)        # MXU row select
+    t1 = jnp.einsum("...i,ij->...j", row1h, patch,        # row select
+                    precision=jax.lax.Precision.HIGHEST)
     col1h = (lj[..., None] == jnp.arange(ps_w)).astype(patch.dtype)
     d_map = (t1 * col1h).sum(-1)                          # one-term select
     inb = ((cells[..., 0] >= 0) & (cells[..., 0] < h)
@@ -228,10 +228,10 @@ def geodesic_field(edt, resolution: float, goal_xy, robot_radius: float,
     Min-plus wavefront on the grid (8-neighbourhood; straight step = res,
     diagonal = res*sqrt2), iterated to the map diameter — each iteration
     is nine shifted adds + a min, so the whole field is a handful of
-    fused elementwise passes on TPU.  Free space = ``edt > robot_radius``
+    fused elementwise passes on the device.  Free space = ``edt > robot_radius``
     (C-space inflation); unreachable / occupied cells saturate at ``big``.
 
-    This is the TPU-native analogue of the global planner the reference's
+    This is the on-device analogue of the global planner the reference's
     BARN protocol runs under move_base: a purely local clearance-respecting
     MPC dead-ends in cave-like BARN worlds (the Euclidean goal term pulls
     into concave pockets); the per-step cost is one bilinear lookup (the

@@ -6,9 +6,8 @@ the same closed-form arc kinematics and speed limiter the sim applies
 smooth planning cost (mpc/cost.py), and returns the information-theoretic
 MPPI weighting (or the CEM elite refit).
 
-Shapes are TPU-friendly: everything is [K, H, ...] dense tensors rolled with
-``lax.scan`` over H and vmapped over robots; K is a multiple of 128 by
-default so reductions tile the VPU lanes cleanly.  Batch over scenes with
+Shapes are dense: everything is [K, H, ...] tensors rolled with
+``lax.scan`` over H and vmapped over robots.  Batch over scenes with
 vmap/shard_map outside (mpc solves/s is a headline benchmark, BASELINE.md).
 """
 
@@ -124,7 +123,8 @@ def mppi_plan(
     )
     beta = jnp.min(costs)
     wts = jax.nn.softmax(-(costs - beta) / cfg.lam)
-    plan = jnp.einsum("k,khd->hd", wts, cand)
+    plan = jnp.einsum("k,khd->hd", wts, cand,
+                      precision=jax.lax.Precision.HIGHEST)
     action = plan[0]
     # receding horizon: shift, repeat last
     nominal = jnp.concatenate([plan[1:], plan[-1:]], axis=0)

@@ -35,7 +35,7 @@ facts make this a dense, gather-free decode:
      key ``(window_pos << 2) | code`` makes one ``max`` pick the
      highest-index writing beam AND its value at once.
 
-Everything is integer arithmetic — bit-identical on CPU x64 and TPU.
+Everything is integer arithmetic — bit-identical on every platform.
 """
 
 from __future__ import annotations
@@ -51,10 +51,8 @@ from img_env_tpu.ops.polar import PolarStatics
 
 _BIG = np.int32(2 ** 14)       # "no hit" sentinel step (any real s < this)
 _BM = 64                       # slots per painter block: windows cover half
-                               # the angular drift of 128-slot blocks; the
-                               # Pallas kernel packs two neighbouring blocks
-                               # side by side to keep full 128-lane compute,
-                               # so width CLASSES are shared per block PAIR
+                               # the angular drift of 128-slot blocks; width
+                               # CLASSES are shared per block PAIR
 
 
 class PainterRegion(NamedTuple):
@@ -64,7 +62,7 @@ class PainterRegion(NamedTuple):
     rbase: np.ndarray       # [nb] int32 window start beam per block
     widx: np.ndarray        # [nb, W] int32 clipped beam index per window pos
     sstep: np.ndarray       # [nb, W, BM] int16: step+1 of the visit, 0=none
-                            #   (BM minor so slots ride the VPU lanes)
+                            #   (BM minor: slots are the contiguous axis)
 
 
 class PainterStatics(NamedTuple):
@@ -166,11 +164,9 @@ class PainterStatics(NamedTuple):
         np.maximum.at(bmax, ent_blk, ent_r)
         wblk = np.where(bmax >= 0, bmax - np.minimum(bmin, bmax) + 1, 0)
 
-        # Window start per block: aligned DOWN to 8 (the Pallas kernel
-        # slices the int32 threshold rows at rbase — int32 sublane tiling
-        # allows multiples of 8); width class covers [rbase8, bmax] rounded
-        # up to a multiple of 8 (the table block's W equals its array dim,
-        # so Mosaic accepts any W).
+        # Window start per block: aligned DOWN to 8; the width class covers
+        # [rbase8, bmax] rounded up (fine classes of 16 up to 128 beams,
+        # powers of two above), so few distinct region shapes compile.
         r_pad = (R + 127) // 128 * 128
         rb16 = np.maximum(np.minimum(bmin, bmax), 0) // 8 * 8
         w_need = np.where(bmax >= 0, bmax - rb16 + 1, 0)
@@ -181,8 +177,7 @@ class PainterStatics(NamedTuple):
             2 ** np.ceil(np.log2(np.maximum(w_need, 1))).astype(int), 128)
         wcls[nzb] = np.where(w_need[nzb] <= 128, fine[nzb], coarse[nzb])
         wcls = np.minimum(wcls, r_pad)
-        # width class shared per block PAIR (the kernel computes two
-        # neighbouring 64-slot blocks side by side in one 128-lane pass)
+        # width class shared per block PAIR (fewer, longer regions)
         wpair = np.maximum(wcls[0::2], wcls[1::2])
         wcls = np.repeat(wpair, 2)
         rb16 = np.minimum(rb16, np.maximum(r_pad - wcls, 0))
@@ -276,11 +271,6 @@ class PainterTables(NamedTuple):
     region_sstep: Tuple[jnp.ndarray, ...]
     wide_slots: jnp.ndarray = None
     wide_sstep: jnp.ndarray = None
-    kernel: Tuple = None    # pallas_paint.make_paint_tables (TPU path)
-    kernel_t: dict = None   # pallas_paint_t.make_paint_t_tables (TPU path)
-    # compact-painter consumer remaps (resize-subgrid mask, TPU path)
-    resize_pos_c: jnp.ndarray = None   # [oh*ow, 16] into compact space
-    own_mask_c: jnp.ndarray = None     # [N, Pc] self-stamp mask
 
 
 def make_painter_tables(pst: PainterStatics, device_put=True) -> PainterTables:
@@ -304,8 +294,7 @@ def hit_steps(pst: PainterStatics, any_hit, first_c, first_k,
     sample is valid (samples in a chunk are consecutive ray steps, and a
     real first hit is always a valid sample), so the chunk-base select runs
     as a [N, R, NC] masked reduce and the minor-run-end (``nxt``) lookup as
-    a [N, R, S] masked reduce — TPU scalar gathers ran these two lookups at
-    ~2.2 ms for 200x960 beams (benchmarks/README.md ledger).
+    a [N, R, S] masked reduce instead of two per-beam gathers.
     """
     gs = t.globstep if t is not None else jnp.asarray(pst.globstep)
     nxt = t.nxt_flat if t is not None else jnp.asarray(pst.nxt_flat)

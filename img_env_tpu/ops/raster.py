@@ -1,4 +1,4 @@
-"""Occupancy composition and collision codes, TPU-style.
+"""Occupancy composition and collision codes as on-device scatters.
 
 The reference mutates one shared uint8 grid per robot (N full-map copies per
 step, img_env.cpp:620-629).  Here the same *cell-quantized* semantics are
@@ -174,15 +174,8 @@ def build_layers(
     ped_left_mask,
     ped_right_points,  # [M,R,2]
     ped_right_mask,
-    robots_pallas: bool = False,
 ) -> OccupancyLayers:
-    """Scatter all dynamic agents into the layered occupancy.
-
-    robots_pallas: rasterize the robot footprints with the block one-hot
-    MXU kernel (ops/pallas_raster.py) instead of XLA scatters — same
-    count semantics; the id field becomes the id-SUM, exact wherever the
-    decodes consult it (count == 1).
-    """
+    """Scatter all dynamic agents into the layered occupancy."""
     hw = obs_map.shape
 
     if robot_points.shape[0] >= 4096:
@@ -190,14 +183,7 @@ def build_layers(
             "packed-map robot ids use bits 3..14 (<= 4095 robots)")
     rp = transform_points(robot_pose, robot_points)
     r_cells = world_to_cell(rp, resolution)
-    if robots_pallas and robot_points.shape[0] > 0:
-        from img_env_tpu.ops.pallas_raster import robot_maps_pallas
-
-        robot_count, robot_id_k = robot_maps_pallas(
-            r_cells, robot_mask, h=hw[0], w=hw[1])
-    else:
-        robot_count = scatter_presence(r_cells, robot_mask, hw)
-        robot_id_k = None
+    robot_count = scatter_presence(r_cells, robot_mask, hw)
 
     pb = transform_points(ped_pose, ped_body_points)
     pl = transform_points(ped_pose, ped_left_points)
@@ -208,12 +194,7 @@ def build_layers(
     ped_strong = scatter_occupancy(world_to_cell(pr, resolution), ped_right_mask, hw)
 
     static_occ = (obs_map < CELL_FREE_MIN) | ped_strong | ped_weak
-    robot_id = (robot_id_k if robot_id_k is not None
-                else scatter_max_id(r_cells, robot_mask, hw))
-    # the id field is only ever decoded when robot_count == 1 (polar
-    # decode_packed, the fill kernel, collision_codes) — clamp the pallas
-    # id-sum into the 12-bit field for the count >= 2 don't-care cells
-    robot_id = jnp.minimum(robot_id, 4095)
+    robot_id = scatter_max_id(r_cells, robot_mask, hw)
     # collision-category bits (cell_categories semantics), so the collision
     # check is ONE gather instead of four
     obs0 = obs_map == 0

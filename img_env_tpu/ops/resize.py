@@ -1,16 +1,17 @@
-"""Bicubic resize as two small matmuls (MXU-friendly).
+"""Bicubic resize as two small matmuls.
 
 The reference downsamples each 400x400 view map to 48x48 with cv2
 INTER_CUBIC (yaml_env.py:431-438).  cv2's cubic kernel (a = -0.75, 4 taps,
 replicate border, no antialias on downscale) is separable, so the resize is
-``A @ img @ B.T`` with precomputed sparse weight matrices — ideal for the TPU
-MXU and trivially batched over robots.
+``A @ img @ B.T`` with precomputed sparse weight matrices, trivially batched
+over robots.
 """
 
 from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -50,8 +51,11 @@ def resize_cubic(img: jnp.ndarray, out_hw, dtype=jnp.float32) -> jnp.ndarray:
     a = jnp.asarray(resize_matrix(out_h, src_h), dtype)
     b = jnp.asarray(resize_matrix(out_w, src_w), dtype)
     x = img.astype(dtype)
-    x = jnp.einsum("oh,...hw->...ow", a, x)
-    x = jnp.einsum("ow,...hw->...ho", b, x)
+    # full f32: the result is rounded to uint8 levels, and a reduced-
+    # precision pass (TF32) would flip pixels at the rounding boundary
+    hi = jax.lax.Precision.HIGHEST
+    x = jnp.einsum("oh,...hw->...ow", a, x, precision=hi)
+    x = jnp.einsum("ow,...hw->...ho", b, x, precision=hi)
     return x
 
 

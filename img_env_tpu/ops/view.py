@@ -150,7 +150,7 @@ def gather_world_occupancy(
     ONE gather from the id-packed int32 map (raster.build_layers encoding:
     bit0 = static/ped occupied, bits 1..2 = robot count capped at 2,
     bits 3.. = 1 + one covering robot's id) instead of four separate map
-    gathers — the view fill is gather-bound on TPU.  Self-exclusion by id
+    gathers — the view fill is gather-bound.  Self-exclusion by id
     needs no second (own-footprint) gather: another robot covers a cell iff
     count >= 2, or count == 1 with a different id (the reference instead
     draws only robots j != i into robot i's map copy, img_env.cpp:620-629).

@@ -2,12 +2,12 @@
 
 This module is the ground truth for the test suite: a small, slow, sequential
 re-implementation of the behaviors documented in SURVEY.md §8, written
-directly from the C++ semantics (file:line citations inline).  The TPU kernels
-are validated against it kernel-by-kernel and end-to-end.
+directly from the C++ semantics (file:line citations inline).  The engine's
+on-device stages are validated against it stage-by-stage and end-to-end.
 
-It deliberately mirrors the *reference*, not the TPU engine — double
+It deliberately mirrors the *reference*, not the engine — double
 precision, sequential loops, mutable grids — so that any disagreement points
-at the TPU implementation.
+at the engine.
 """
 
 from __future__ import annotations

@@ -74,7 +74,11 @@ def _social(agent, others):
         ilen = math.hypot(ivec[0], ivec[1])
         idir = ivec / ilen if ilen > 0 else np.zeros(2)
         dot = max(-1.0, min(1.0, float(idir @ diff_dir)))
-        crs = idir[0] * diff_dir[1] - idir[1] * diff_dir[0]
+        # idir x diff_dir, written so it is exactly 0 for equal velocities
+        # (the angle of parallel vectors), not a rounding residual
+        crs = (SFM_LAMBDA * (vel_diff[0] * diff_dir[1]
+                             - vel_diff[1] * diff_dir[0]) / ilen
+               if ilen > 0 else 0.0)
         theta = math.atan2(crs, dot)
         tsign = 0.0 if theta == 0 else math.copysign(1.0, theta)
         b = SFM_GAMMA * ilen

@@ -2,7 +2,7 @@
 
 ``BatchedNavEnv`` vmaps the single-scene pure functions over a leading
 ``[S]`` scene axis and (optionally) pins that axis to the ``scene`` mesh
-axis, so S scenes x N robots step as one XLA program — the TPU-native
+axis, so S scenes x N robots step as one XLA program — the on-device
 replacement for the reference's one-ROS-node-per-scene fan-out
 (create_launch.py:25-34, SURVEY.md §2.1 parallelism table).
 """
@@ -37,10 +37,9 @@ class BatchedNavEnv:
         # The default path vmaps only the genuinely per-scene work (crowd,
         # dynamics, raster compositing) and runs the sensor pipeline FLAT
         # over all S*N robots (NavEnv._sensor_pass): the polar incidence
-        # tables stream once instead of once per scene and the painter pads
-        # its 128 robot lanes once.  ``legacy_vmap`` keeps the plain
-        # vmap-the-whole-step path (parity reference; 'reference' sensor
-        # mode has no flat pipeline and always uses it).
+        # tables stream once instead of once per scene.  ``legacy_vmap``
+        # keeps the plain vmap-the-whole-step path (parity reference;
+        # 'reference' sensor mode has no flat pipeline and always uses it).
         self.flat_sensors = (not legacy_vmap
                              and cfg.sensor_mode != "reference")
 

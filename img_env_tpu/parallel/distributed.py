@@ -1,11 +1,12 @@
-"""Multi-host mesh initialization (pod slices over ICI/DCN).
+"""Multi-host mesh initialization.
 
 The reference scales across machines by launching more ROS masters; here one
 ``jax.distributed`` job owns all hosts and the same [scene, model] mesh spans
-every chip — collectives ride ICI within a slice and DCN across hosts, with
-no per-step host involvement (SURVEY.md §5 "Distributed communication").
+every device — XLA runs the collectives (NCCL on GPUs), with no per-step
+host involvement (SURVEY.md §5 "Distributed communication").
 
-Usage on each host (or let TPU pod env vars auto-configure everything):
+Usage on each host (give the coordinator address, process count and id
+unless the cluster environment supplies them):
 
     from img_env_tpu.parallel.distributed import initialize, global_mesh
     initialize()                       # no-op on single-host

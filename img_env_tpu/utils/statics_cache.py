@@ -1,6 +1,6 @@
 """Opt-in disk cache for host-built env statics (fast warm starts).
 
-Building `EnvStatics` + the painter kernel tables is host-side Python
+Building `EnvStatics` (incl. the painter tables) is host-side Python
 (slot layout, beam walks, window classes — ~5 s for the 400x400/960
 production shape).  The tables are a pure function of (config, map file,
 package source), so serving fleets can reuse them across processes:

@@ -1,7 +1,7 @@
 """The driver-facing bench configs must always build and step (CPU guard).
 
-bench.py runs on real TPU hardware at the end of every round; this test
-catches config/API drift early on the CPU mesh (tiny robot counts — the
+bench.py runs on the GPU; this test catches config/API drift early on the
+CPU mesh (tiny robot counts — the
 geometry pipeline statics dominate build time, so shrink the view too).
 """
 

@@ -5,8 +5,8 @@ at toy shapes (2 robots, 64 beams).  This exercises the bench-class
 parity-sensor program — 8 scenes x 8 robots, 400x400 views, 960-beam
 lasers, TWO sensor groups, SFM leg crowd — through the flat multi-scene
 sensor pass, sharded over all 8 virtual devices (conftest forces the
-8-device CPU mesh).  The XLA sensor paths run here; bench.py --selfcheck
-asserts they bit-match the Pallas kernels at production shape on TPU.
+8-device CPU mesh).  The same XLA sensor path runs on every platform;
+chip_smoke.py checks the GPU against the CPU at production shape.
 """
 
 import pytest

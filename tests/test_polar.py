@@ -121,7 +121,7 @@ def test_no_laser_values(rng):
 
 def test_compact_painter_matches_full_resize(rng):
     """Masked (resize-subgrid) painter: the 48x48 sensor map is bit-equal
-    to resizing the FULL painted view (the TPU fast path's contract)."""
+    to resizing the FULL painted view (the compact painter's contract)."""
     from img_env_tpu.ops.painter import PainterStatics, hit_steps, paint_sorted
 
     static, obs, peds, robots = _random_scene(rng, n_rob=2, n_ped=1, n_obs=2)

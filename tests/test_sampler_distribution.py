@@ -1,6 +1,6 @@
 """Statistical parity of the scenario sampler vs the reference's EnvPos.
 
-The TPU sampler (env/sampler.py) replaces the reference's unbounded
+The on-device sampler (env/sampler.py) replaces the reference's unbounded
 rejection loops (reset_helper.py:189-345) with fixed-trial masked
 resampling.  PARITY.md claims the distributions agree; this test MEASURES
 it: a faithful NumPy re-implementation of the reference's loop semantics

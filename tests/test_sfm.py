@@ -91,3 +91,30 @@ def test_sfm_waypoint_cycle(rng):
     # after cycling, destination is the r=0 goal copy (index 1), never reached
     assert int(wp.dest_idx[0]) == 1
     assert bool(wp.has_dest[0])
+
+
+def test_social_force_at_rest_has_no_sideways_term(rng):
+    """Agents at rest (every ped right after a reset): the interaction
+    direction is the unit separation, the signed angle between them is
+    exactly 0, so the force is the pure repulsion term — no sideways term
+    whose sign would come from rounding."""
+    import math
+
+    from img_env_tpu.constants import SFM_GAMMA, SFM_N_PRIME
+    from img_env_tpu.crowd.sfm import _social_force
+
+    pos = rng.uniform(0, 4, (9, 2))
+    got = np.asarray(_social_force(jnp.asarray(pos), jnp.zeros((9, 2)),
+                                   jnp.ones(9, bool)))
+    want = np.zeros((9, 2))
+    for i in range(9):
+        for j in range(9):
+            d = pos[j] - pos[i]
+            dist = math.hypot(*d)
+            if i == j or dist * dist > 64.0:
+                continue
+            ddir = d / dist
+            idir = ddir / math.hypot(*ddir)
+            b = SFM_GAMMA * math.hypot(*ddir)
+            want[i] += -math.exp(-dist / b - (SFM_N_PRIME * b * 0.0) ** 2) * idir
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)

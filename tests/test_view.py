@@ -30,7 +30,7 @@ VP = ViewParams(
 )
 
 
-def _run_tpu_views(static, obs, peds, robots, vp):
+def _run_engine_views(static, obs, peds, robots, vp):
     layers = _layers_from_scene(static, obs, peds, robots)
     vs = ViewStatics.build(vp)
     rob_poses = np.stack([p for p, _ in robots])
@@ -51,7 +51,7 @@ def _run_tpu_views(static, obs, peds, robots, vp):
 @pytest.mark.parametrize("trial", range(3))
 def test_laser_parity(rng, trial):
     static, obs, peds, robots = _random_scene(rng, n_rob=3, n_ped=2, n_obs=2)
-    got = _run_tpu_views(static, obs, peds, robots, VP)
+    got = _run_engine_views(static, obs, peds, robots, VP)
 
     _, _, robot_maps = oracle_compose_scene(static, RES, obs, peds, robots)
     for i, (pose, bbox) in enumerate(robots):
@@ -70,7 +70,7 @@ def test_view_map_exact(rng, beams):
     """The traced laser view map is bit-identical to the oracle's."""
     vp = VP._replace(range_total=beams)
     static, obs, peds, robots = _random_scene(rng, n_rob=2, n_ped=2, n_obs=2)
-    got = _run_tpu_views(static, obs, peds, robots, vp)
+    got = _run_engine_views(static, obs, peds, robots, vp)
     _, _, robot_maps = oracle_compose_scene(static, RES, obs, peds, robots)
     for i, (pose, bbox) in enumerate(robots):
         want = oracle_view(
@@ -86,7 +86,7 @@ def test_view_no_laser_exact(rng):
     """Without the laser trace, the FOV fill must be bit-exact."""
     vp = VP._replace(use_laser=False)
     static, obs, peds, robots = _random_scene(rng, n_rob=2, n_ped=2, n_obs=2)
-    got = _run_tpu_views(static, obs, peds, robots, vp)
+    got = _run_engine_views(static, obs, peds, robots, vp)
     _, _, robot_maps = oracle_compose_scene(static, RES, obs, peds, robots)
     for i, (pose, bbox) in enumerate(robots):
         want = oracle_view(
